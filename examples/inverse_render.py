@@ -6,7 +6,7 @@ program, so scene parameters optimize by gradient descent against a
 rendered target (SURVEY §7.7).
 
 Run: python examples/inverse_render.py          (64x36 smoke, any backend)
-     python examples/inverse_render.py --hd     (1280x720 on one TPU chip)
+     python examples/inverse_render.py --hd     (1280x720 on one GPU)
      python examples/inverse_render.py --pose [--hd]
          pose-recovery mode: the sphere starts at a perturbed
          translation and optax.adam descends the image MSE back to the
@@ -18,8 +18,8 @@ Run: python examples/inverse_render.py          (64x36 smoke, any backend)
 
 The --hd mode optimizes against a full 921,600-ray frame: per-level
 rematerialization (render_loss's default) plus 8-way gradient-accumulation
-microbatches (``n_micro``) keep the backward pass inside one chip's HBM —
-the full-frame gradient without them needs several times the chip.
+microbatches (``n_micro``) keep the backward pass inside one device's
+memory — the full-frame gradient without them needs several times that.
 """
 
 import math

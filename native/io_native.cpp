@@ -1,7 +1,7 @@
 // Native host-side IO for raytracer_tpu: OBJ parsing and ASCII-PPM codec.
 //
 // The reference implements its entire host runtime in native code (Rust);
-// here the TPU compute path is JAX/XLA/Pallas and the host-side
+// here the compute path is JAX/XLA/Pallas and the host-side
 // throughput paths — parsing multi-megabyte OBJ meshes and encoding
 // megapixel ASCII PPMs — are C++ behind a ctypes ABI
 // (raytracer_tpu/native.py), with pure-Python fallbacks.

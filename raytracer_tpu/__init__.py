@@ -1,4 +1,4 @@
-"""raytracer_tpu — a TPU-native differentiable Whitted ray tracer in JAX.
+"""raytracer_tpu — a differentiable Whitted ray tracer in JAX.
 
 A from-scratch rebuild of the capabilities of the reference Rust renderer
 (lerouxrgd/raytracer): YAML scene description in, PPM image out, with
@@ -6,60 +6,41 @@ spheres/planes/cubes/cylinders/cones/triangles, Phong shading, point and
 area lights (soft shadows), reflection/refraction, procedural and image
 texture patterns, OBJ meshes, groups and CSG.
 
-Architecture (TPU-first, not a port):
+Architecture (accelerator-first, not a port):
   * Scenes compile to SoA arrays (one padded table per primitive family).
   * Rendering is wavefront: whole ray batches flow through
     trace -> shade -> spawn-secondary passes unrolled to a fixed depth,
     the entire frame is one jit-compiled, differentiable program.
-  * Ray->object-space transforms are batched matmuls (MXU); intersection
-    math is vectorized elementwise work (VPU); hot paths have Pallas kernels.
-  * Multi-chip scaling shards the pixel grid over a jax.sharding.Mesh with
-    the scene replicated; gradients of scene parameters are psum-reduced.
+  * Ray->object-space transforms are batched einsums and intersection math
+    is vectorized elementwise work; free meshes are searched by a Pallas
+    kernel on the GPU (ops/mesh_kernel.py) and by a chunked scan elsewhere.
+  * Multi-device scaling shards the pixel grid over a jax.sharding.Mesh with
+    the scene replicated; gradients of scene parameters are averaged.
 """
 
 import os as _os
+from pathlib import Path as _Path
 
 import jax as _jax
 
-# Deep spawn-tree programs (depth-4 refraction over a Pallas-culled mesh)
-# can take many minutes to XLA-compile; persist compiled executables so
-# every process after the first starts warm. Opt out by setting
-# JAX_COMPILATION_CACHE_DIR to an empty string.
-#
-# The cache dir is keyed by the HOST's CPU feature set: XLA:CPU AOT
-# executables embed target machine features, and loading an entry
-# compiled on a host with different features segfaults the process
-# (observed: a cache written on an avx512 `prefer-no-gather` machine
-# SIGSEGV'd a later VM in backend_compile_and_load). A feature-keyed
-# directory makes a migrated VM start cold instead of crashing.
+# Deep spawn-tree programs can take minutes to compile; persist compiled
+# executables so every process after the first starts warm. JAX itself
+# honours JAX_COMPILATION_CACHE_DIR (an empty value opts out); otherwise
+# the cache lives in one fixed directory inside the checkout, so a copy
+# of the checkout never reuses CPU executables built for another host.
 if "JAX_COMPILATION_CACHE_DIR" not in _os.environ:
-    def _host_key():
-        try:
-            import hashlib, platform, re
-            info = ""
-            try:
-                with open("/proc/cpuinfo") as f:
-                    m = re.search(r"^flags\s*:\s*(.*)$", f.read(), re.M)
-                info = m.group(1) if m else ""
-            except OSError:
-                pass
-            raw = platform.machine() + " " + " ".join(sorted(info.split()))
-            return hashlib.md5(raw.encode()).hexdigest()[:10]
-        except Exception:  # pragma: no cover
-            return "default"
-
-    _cache = _os.path.expanduser(f"~/.cache/raytracer_tpu_xla-{_host_key()}")
-    _os.makedirs(_cache, exist_ok=True)
-    _jax.config.update("jax_compilation_cache_dir", _cache)
+    _jax.config.update(
+        "jax_compilation_cache_dir",
+        str(_Path(__file__).resolve().parent.parent / ".jax_cache"),
+    )
     _jax.config.update("jax_persistent_cache_min_compile_time_secs", 5.0)
 
 # Keep large malloc buffers in the arena instead of mmap/munmap per
 # allocation. numpy hands every >128 KB buffer straight back to the
 # kernel on free, so each scene-compile array re-faults its pages on
-# first touch — on VMs with slow page faults (Firecracker et al.) that
-# measured ~12 MB/s, turning a 1M-triangle scene build into ~40 s of
-# fault handling. Arena reuse makes repeat allocations ~200x faster at
-# the cost of a sticky RSS high-water mark. Opt out: RAYTRACER_MALLOPT=0.
+# first touch, which is slow on VMs with slow page faults. Arena reuse
+# avoids that at the cost of a sticky RSS high-water mark. Opt out:
+# RAYTRACER_MALLOPT=0.
 if _os.environ.get("RAYTRACER_MALLOPT", "1") != "0":
     try:
         import ctypes as _ctypes

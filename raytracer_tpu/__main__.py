@@ -16,7 +16,7 @@ DITHER_CHOICES = ("bayer2", "bayer4", "bayer8", "bayer16", "bayer-color")
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
-        prog="raytracer_tpu", description="The Ray Tracer Challenge CLI (TPU-native)"
+        prog="raytracer_tpu", description="The Ray Tracer Challenge CLI"
     )
     parser.add_argument("--scene", required=True, metavar="FILE",
                         help="A yaml description of the scene to render")

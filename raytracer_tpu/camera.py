@@ -4,7 +4,7 @@ Semantics follow the reference camera (/root/reference/src/camera.rs:18-64):
 half_width/half_height derived from fov and aspect, rays shot through pixel
 centers on the z=-1 canvas through the inverse camera transform. Instead of
 one ray per call, :func:`ray_grid` produces the entire pixel grid of rays as
-arrays — the TPU-native unit of work is the whole frame (or a tile of it).
+arrays — the accelerator's unit of work is the whole frame (or a tile of it).
 """
 
 from __future__ import annotations
@@ -118,8 +118,10 @@ def ray_grid_jax(cam_inv, hsize: int, vsize: int, field_of_view):
     n = hsize * vsize
     pixels_h = jnp.stack(
         [wx.ravel(), wy.ravel(), jnp.full(n, -1.0), jnp.ones(n)], axis=-1)
-    pixel_world = pixels_h @ cam_inv.T
-    origin_world = cam_inv @ jnp.asarray([0.0, 0.0, 0.0, 1.0])
+    # float32 products at full precision (the GPU may otherwise use TF32)
+    pixel_world = jnp.matmul(pixels_h, cam_inv.T, precision="highest")
+    origin_world = jnp.matmul(cam_inv, jnp.asarray([0.0, 0.0, 0.0, 1.0]),
+                              precision="highest")
     directions = pixel_world[:, :3] - origin_world[:3]
     directions = directions / jnp.maximum(
         jnp.linalg.norm(directions, axis=-1, keepdims=True), 1e-12)

@@ -6,7 +6,7 @@ toggling in_l/in_r and keeping hits the op's truth table allows
 (csg.rs:117-123). Nested trees recurse: a child node filters its own hits
 before the parent ever sees them (csg.rs:26-49).
 
-TPU-native replacement: in_l/in_r *before* hit j are parities of how many
+Batched replacement: in_l/in_r *before* hit j are parities of how many
 earlier (alive, in-subtree) hits were left/right hits — i.e. exclusive
 prefix sums mod 2 over the t-sorted candidate list. Processing nodes
 bottom-up with an "alive" mask reproduces the recursion exactly, with no
@@ -30,8 +30,8 @@ def _op_allowed(op_code, l_hit, in_l, in_r):
 
 
 # Column count above which the sorted-cumsum path beats the O(C^2)
-# pairwise parity (mesh-bearing CSG trees); below it the sortless path is
-# ~20x faster (r5 TPU trace: apply_csg on [409600, 16] fell 164 -> 8 ms).
+# pairwise parity (mesh-bearing CSG trees); below it the sortless path
+# avoids the sort entirely.
 PAIRWISE_MAX_COLS = 128
 
 

@@ -5,13 +5,13 @@ enum dispatch (shapes.rs:204-246). Here a whole ray batch meets each
 primitive FAMILY at once:
 
 * quadric-ish families (sphere/plane/cube/cylinder/cone) transform the ray
-  batch into every primitive's object space with one batched matmul
-  (einsum -> MXU), then run the family's closed-form solve elementwise
-  (VPU);
+  batch into every primitive's object space with one batched einsum, then
+  run the family's closed-form solve elementwise;
 * triangles are pre-transformed to world space at compile time, so
-  Moller-Trumbore runs directly on the world rays, chunked through a
-  lax.scan that keeps a running top-k of nearest hits per ray (no [R, Nt]
-  materialization for big meshes).
+  Moller-Trumbore runs directly on the world rays: CSG triangles as dense
+  columns, free meshes through a chunk-culled search that keeps the
+  nearest hit per ray (the Pallas kernel of ops/mesh_kernel.py on the
+  GPU, a lax.scan elsewhere; no [R, Nt] materialization for big meshes).
 
 The result is a per-ray candidate table ``(t, gid, u, v)`` with +inf for
 misses, replacing the reference's BTreeMap-of-intersections
@@ -31,19 +31,19 @@ import numpy as np
 from raytracer_tpu.constants import EPSILON
 from raytracer_tpu.core import types as T
 from raytracer_tpu.core.csg import apply_csg
+from raytracer_tpu.ops import mesh_kernel as MK
 
 INF = jnp.inf
 
-# Triangles per scan chunk (trade VMEM/HBM traffic vs. scan length).
-TRI_CHUNK = 256
+# Triangles per culling chunk, shared by the scan and the GPU kernel so
+# one build-time AABB table (Scene.mesh_bb_chunk) serves both.
+TRI_CHUNK = MK.CHUNK
 
 
 def select_col(x, idx):
-    """x[r, idx[r]] for small trailing dims — a one-hot select-sum.
-
-    TPU lowers take_along_axis to a gather custom-call (~15 ms per
-    1M-row take in profile); for C <= ~32 a masked reduce on the VPU is
-    orders of magnitude cheaper.
+    """x[r, idx[r]] for small trailing dims — a one-hot select-sum
+    (a masked reduce instead of a gather; whether that still pays on the
+    GPU is an open measurement).
     """
     c = x.shape[-1]
     cols = jax.lax.broadcasted_iota(jnp.int32, x.shape, x.ndim - 1)
@@ -54,11 +54,11 @@ def select_col(x, idx):
 
 
 def table_gather(table, idx, limit: int = 32):
-    """``table[idx]`` that avoids the TPU gather custom-call when the
-    table is small: a masked broadcast-reduce over the table axis (exact
-    — no matmul rounding). Medium float tables (G <= 1024) go through a
-    one-hot MXU matmul — also exact, because each output row has exactly
-    one non-zero product (value * 1.0) and zero terms add exactly, and
+    """``table[idx]`` without a gather when the table is small: a masked
+    broadcast-reduce over the table axis (exact — no matmul rounding).
+    Medium float tables (G <= 1024) go through a one-hot matmul — also
+    exact, because each output row has exactly one non-zero product
+    (value * 1.0) and zero terms add exactly, and
     precision=HIGHEST keeps the f32 inputs unrounded. Falls back to a
     real gather only for big tables (meshes), where the one-hot operand
     would dwarf the gather cost.
@@ -265,6 +265,28 @@ def _cone_ts(o, d, mn, mx, closed):
     return jnp.stack([body0, body1, capl, capu], -1)
 
 
+def _mt(o, d, p1, e1, e2, thresh):
+    """triangle.rs:93-115 on broadcastable [..., 3] operands.
+
+    Returns (t, u, v, ok) unmasked; ``ok`` is the reference's hit test
+    (|det| >= thresh and the barycentric bounds). Shared by the candidate
+    tables, the scan and the hit recomputation behind the mesh kernel, so
+    every path evaluates the same expressions in the same order.
+    """
+    dce2 = jnp.cross(d, e2)
+    det = jnp.sum(e1 * dce2, -1)
+    ok = jnp.abs(det) >= thresh
+    f = 1.0 / jnp.where(ok, det, 1.0)
+    p1o = o - p1
+    u = f * jnp.sum(p1o * dce2, -1)
+    ok &= (u >= 0.0) & (u <= 1.0)
+    oce1 = jnp.cross(p1o, e1)
+    v = f * jnp.sum(d * oce1, -1)
+    ok &= (v >= 0.0) & (u + v <= 1.0)
+    t = f * jnp.sum(e2 * oce1, -1)
+    return t, u, v, ok
+
+
 def _tri_moller_trumbore(o, d, p1, e1, e2, det_eps=None):
     """triangle.rs:93-115 (world space; t identical, see types.py).
 
@@ -277,65 +299,83 @@ def _tri_moller_trumbore(o, d, p1, e1, e2, det_eps=None):
     threshold (a fixed EPSILON erases scaled-down mesh instances).
     None = plain EPSILON (unit-instance callers: tests, raw kernels).
     """
-    d_b = d[:, None, :]
-    dce2 = jnp.cross(d_b, e2[None])                 # [R,Tc,3]
-    det = jnp.sum(e1[None] * dce2, -1)
     thresh = EPSILON if det_eps is None else det_eps[None]
-    ok = jnp.abs(det) >= thresh
-    f = 1.0 / jnp.where(ok, det, 1.0)
-    p1o = o[:, None, :] - p1[None]
-    u = f * jnp.sum(p1o * dce2, -1)
-    ok &= (u >= 0.0) & (u <= 1.0)
-    oce1 = jnp.cross(p1o, e1[None])
-    v = f * jnp.sum(d_b * oce1, -1)
-    ok &= (v >= 0.0) & (u + v <= 1.0)
-    t = f * jnp.sum(e2[None] * oce1, -1)
+    t, u, v, ok = _mt(o[:, None], d[:, None], p1[None], e1[None], e2[None],
+                      thresh)
     return jnp.where(ok, t, INF), u, v
 
 
-def _free_chunk_bbs(scene: T.Scene, start, p1, e1, e2):
-    """Chunk AABBs (bb_min, bb_max) [nc, 3] for free-triangle chunking.
+def _free_chunks(scene: T.Scene):
+    """The free (non-CSG) triangles as TRI_CHUNK-triangle chunks for the
+    scan: (p1, e1, e2 [Ch, TRI_CHUNK, 3], det_eps [Ch, TRI_CHUNK],
+    bb_min, bb_max [Ch, 3]). Padding triangles are degenerate with
+    threshold +inf, so they never hit. The chunk AABBs are the build-time
+    table (builder.finish), made at exactly this chunk size."""
+    st = scene.static
+    start, count = st.n_csg_tris, st.counts[5] - st.n_csg_tris
+    n_pad = -count % TRI_CHUNK
+    sl = slice(start, start + count)
 
-    Reuses the build-time tables (padding-masked, so the trailing partial
-    chunk is tighter) when they cover the requested range; otherwise
-    reduces over the chunked vertices in-trace.
-    """
-    nc = p1.shape[0]
+    def pad(x):
+        return jnp.pad(x[sl], ((0, n_pad), (0, 0))).reshape(-1, TRI_CHUNK, 3)
+
+    deps = jnp.pad(scene.tri_det_eps[sl], (0, n_pad),
+                   constant_values=INF).reshape(-1, TRI_CHUNK)
     bb = scene.mesh_bb_chunk
-    if bb is not None and start == scene.static.n_csg_tris and bb.shape[1] >= nc:
-        return bb[:3, :nc].T, bb[3:, :nc].T
-    v0, v1_, v2_ = p1, p1 + e1, p1 + e2
-    bb_min = jnp.minimum(jnp.minimum(v0, v1_), v2_).min(axis=1)
-    bb_max = jnp.maximum(jnp.maximum(v0, v1_), v2_).max(axis=1)
-    return bb_min, bb_max
+    n_chunks = (count + n_pad) // TRI_CHUNK
+    assert bb.shape == (6, n_chunks), (bb.shape, n_chunks)
+    return (pad(scene.tri_p1), pad(scene.tri_e1), pad(scene.tri_e2), deps,
+            bb[:3].T, bb[3:].T)
 
 
-def _tri_behind(scene: T.Scene, origins, directions, start, count):
+def _mesh_kernel(scene: T.Scene, origins, directions, t_cap=None,
+                 any_hit=False):
+    """(t, free-triangle index) from the GPU mesh kernel, outside autodiff:
+    the kernel only searches, callers recompute what they differentiate."""
+    sg = jax.lax.stop_gradient
+    return MK.mesh_nearest(
+        sg(origins), sg(directions), sg(scene.mesh_planes),
+        sg(scene.mesh_bb_chunk), None if t_cap is None else sg(t_cap),
+        any_hit=any_hit,
+    )
+
+
+def _by_platform(gpu, default):
+    """``gpu()`` where the computation is lowered for CUDA, ``default()``
+    elsewhere. Decided at lowering, not at trace time, so one process can
+    render on the GPU and on the CPU alike."""
+    return jax.lax.platform_dependent(cuda=gpu, default=default)
+
+
+def _tri_behind(scene: T.Scene, origins, directions):
     """The free-triangle entry with the LARGEST t <= 0 (nearest behind
     the ray origin); feeds the n1/n2 container walk for transparent
-    meshes (see candidate_hits).
+    meshes (see candidate_hits). Returns (t [R] (-inf = none), gid [R]).
 
-    On TPU this IS the nearest-hit query on the REVERSED ray: negating d
-    negates the Moller-Trumbore determinant and leaves u, v and the
-    numerators unchanged, so t reverses sign EXACTLY in f32 — the
+    On the GPU this is the kernel's nearest hit of the REVERSED ray:
+    negating d negates the Moller-Trumbore determinant and leaves u, v
+    and the numerators unchanged, so t reverses sign exactly — the
     nearest t' > 0 of (o, -d) is -t for the largest t < 0 of (o, d).
-    One Pallas trace replaces a per-chunk lax.scan (wall-clock parity at
-    measured scales — the scan's line-AABB culling is effective — but
-    one code path serves both queries and the kernel's parked-ray and
-    supergroup gates apply). Boundary delta vs the scan path: an
-    intersection at exactly t == 0 (triangle passing through the ray
-    origin itself — the origin is already EPSILON-offset off every
-    surface) is excluded here and included by the scan.
+    Boundary delta vs the scan: an intersection at exactly t == 0 (a
+    triangle through the ray origin itself, which is already
+    EPSILON-offset off every surface) is excluded there and included by
+    the scan.
     """
-    if jax.default_backend() == "tpu" and count >= 4 * TRI_CHUNK:
-        t, gid, _, _ = _tri_free_nearest_pallas(
-            scene, origins, -directions, start, count
-        )
-        return jnp.where(jnp.isfinite(t), -t, -INF), gid
-    return _tri_behind_scan(scene, origins, directions, start, count)
+    def kernel():
+        t, idx = _mesh_kernel(scene, origins, -directions)
+        return jnp.where(jnp.isfinite(t), -t, -INF), _free_gid(scene, idx)
+
+    return _by_platform(
+        kernel, lambda: _tri_behind_scan(scene, origins, directions))
 
 
-def _tri_behind_scan(scene: T.Scene, origins, directions, start, count):
+def _free_gid(scene: T.Scene, idx):
+    st = scene.static
+    count = st.counts[5] - st.n_csg_tris
+    return sum(st.counts[:5]) + st.n_csg_tris + jnp.minimum(idx, count - 1)
+
+
+def _tri_behind_scan(scene: T.Scene, origins, directions):
     """The free-triangle entry with the LARGEST t <= 0 (nearest behind the
     ray origin), chunked scan with line-AABB culling.
 
@@ -347,20 +387,8 @@ def _tri_behind_scan(scene: T.Scene, origins, directions, start, count):
     entry can never be the hit, it only feeds the n1/n2 container walk).
     """
     r = origins.shape[0]
-    n_pad = -count % TRI_CHUNK
-    sl = slice(start, start + count)
-
-    def pad(x):
-        return jnp.pad(x[sl], ((0, n_pad), (0, 0)))
-
-    p1 = pad(scene.tri_p1).reshape(-1, TRI_CHUNK, 3)
-    e1 = pad(scene.tri_e1).reshape(-1, TRI_CHUNK, 3)
-    e2 = pad(scene.tri_e2).reshape(-1, TRI_CHUNK, 3)
-    bb_min, bb_max = _free_chunk_bbs(scene, start, p1, e1, e2)
+    p1, e1, e2, deps, bb_min, bb_max = _free_chunks(scene)
     n_chunks = p1.shape[0]
-    # padding threshold +inf: padding rows (det==0) must reject
-    deps = jnp.pad(scene.tri_det_eps[sl], (0, n_pad),
-                   constant_values=INF).reshape(-1, TRI_CHUNK)
 
     inv_d = 1.0 / jnp.where(jnp.abs(directions) < 1e-12, 1e-12, directions)
     init = (jnp.full((r,), -INF), jnp.zeros((r,), jnp.int32))
@@ -390,9 +418,7 @@ def _tri_behind_scan(scene: T.Scene, origins, directions, start, count):
     bases = jnp.arange(n_chunks, dtype=jnp.int32) * TRI_CHUNK
     (bt, bg), _ = jax.lax.scan(
         body, init, (p1, e1, e2, deps, bases, bb_min, bb_max))
-    tri_off = sum(scene.static.counts[:5])
-    gid = tri_off + start + jnp.minimum(bg, count - 1)
-    return bt, gid
+    return bt, _free_gid(scene, bg)
 
 
 def _static_hits(scene: T.Scene, origins, directions):
@@ -506,15 +532,15 @@ def candidate_hits(scene: T.Scene, origins, directions):
         # triangle at t >= that cap can never win first_hit (the static
         # column is closer) and is never consumed by the n1/n2 walk
         # (which only reads entries with t <= t_hit), so erasing it is
-        # exact — and the cap seeds the mesh kernel's chunk/DMA gates.
+        # exact — and the cap seeds the mesh search's chunk gates.
         pos = (ts > 0.0) & jnp.isfinite(ts)
         t_cap = jnp.min(jnp.where(pos, ts, INF), axis=-1)
         ft, fg, fu, fv = _tri_free_nearest(
-            scene, origins, directions, nt_csg, nt_free, t_cap=t_cap
+            scene, origins, directions, t_cap=t_cap
         )
         cols_t, cols_g, cols_u, cols_v = [ft], [fg], [fu], [fv]
         if st.mesh_transparent:
-            bt, bg = _tri_behind(scene, origins, directions, nt_csg, nt_free)
+            bt, bg = _tri_behind(scene, origins, directions)
             cols_t.append(bt)
             cols_g.append(bg)
             cols_u.append(jnp.zeros_like(bt))
@@ -527,9 +553,9 @@ def candidate_hits(scene: T.Scene, origins, directions):
     return ts, gid, u, v
 
 
-def _tri_free_nearest(scene: T.Scene, origins, directions, start, count,
-                      t_cap=None, any_hit=False):
-    """Nearest positive hit over the non-CSG triangle range.
+def _tri_free_nearest(scene: T.Scene, origins, directions, t_cap=None,
+                      any_hit=False):
+    """Nearest positive hit over the free (non-CSG) triangles.
 
     ``t_cap`` [R] (optional): per-ray search cap — hits at t >= cap
     report +inf. Callers pass the nearest positive static-primitive t,
@@ -537,87 +563,56 @@ def _tri_free_nearest(scene: T.Scene, origins, directions, start, count,
     AABB gates reject statically-occluded geometry.
 
     ``any_hit``: existence-only query (shadow rays where every mesh
-    source casts shadows): the Pallas kernel reports t=0 for any hit
-    below the cap and stops streaming once every ray found one. The
-    scan path ignores the flag (its exact t yields the same blocked
-    verdict — see shadow_blocked).
+    source casts shadows): the GPU kernel reports some hit below the cap,
+    not necessarily the nearest, and stops once every ray of its block
+    found one; u/v are then zero. The scan ignores the flag (its exact t
+    yields the same blocked verdict — see shadow_blocked).
 
-    On TPU with a mid-size mesh this dispatches to the Pallas kernel
-    (ops/mesh_pallas.py) — per-subtile chunk culling in VMEM (2x over the
-    XLA path at teapot scale), with live supergroups DMA-streamed
-    front-to-back through a VMEM double buffer.
+    One path per platform: the Pallas kernel (ops/mesh_kernel.py) on the
+    GPU, the scan everywhere else; the scan is the kernel's reference.
     """
-    if (jax.default_backend() == "tpu"
-            and count >= 4 * TRI_CHUNK):
-        return _tri_free_nearest_pallas(
-            scene, origins, directions, start, count, t_cap=t_cap,
-            any_hit=any_hit)
-    return _tri_free_nearest_scan(
-        scene, origins, directions, start, count, t_cap=t_cap)
+    return _by_platform(
+        lambda: _tri_free_nearest_gpu(
+            scene, origins, directions, t_cap, any_hit),
+        lambda: _tri_free_nearest_scan(scene, origins, directions, t_cap),
+    )
 
 
-def _tri_free_nearest_pallas(scene, origins, directions, start, count,
-                             t_cap=None, any_hit=False):
-    from raytracer_tpu.ops import mesh_pallas as MP
-
-    if scene.mesh_planes is not None and start == scene.static.n_csg_tris:
-        # precomputed at scene build (builder.finish) — HBM-resident,
-        # shared by every dispatch
-        tri = scene.mesh_planes
-        bb = (scene.mesh_bb_chunk, scene.mesh_bb_super)
-    else:
-        sl = slice(start, start + count)
-        tri, bb = MP.pack_tri_planes(
-            scene.tri_p1[sl], scene.tri_e1[sl], scene.tri_e2[sl],
-            scene.tri_det_eps[sl],
-        )
-    r = origins.shape[0]
-    pad = -r % MP.RT
-    if pad:
-        origins = jnp.concatenate(
-            [origins, jnp.zeros((pad, 3), origins.dtype)]
-        )
-        directions = jnp.concatenate(
-            [directions,
-             jnp.broadcast_to(jnp.array([0.0, 0.0, 1.0]), (pad, 3))]
-        )
-        if t_cap is not None:
-            t_cap = jnp.concatenate([t_cap, jnp.full((pad,), INF)])
-    t, idx, u, v = MP.mesh_nearest(origins, directions, tri, bb,
-                                   t_init=t_cap, any_hit=any_hit)
-    t, idx, u, v = t[:r], idx[:r], u[:r], v[:r]
-    tri_off = sum(scene.static.counts[:5])
-    gid = tri_off + start + jnp.minimum(idx, count - 1)
-    return t, gid, u, v
+def _tri_free_nearest_gpu(scene: T.Scene, origins, directions, t_cap=None,
+                          any_hit=False):
+    """The kernel's search, then t, u and v of the winning triangle
+    recomputed in jnp: the value of t is the kernel's, its gradient (and
+    u, v) come from the recomputation, which differentiates exactly like
+    the scan's gather of its winning column."""
+    t_k, idx = _mesh_kernel(scene, origins, directions, t_cap, any_hit)
+    gid = _free_gid(scene, idx)
+    if any_hit:
+        z = jnp.zeros_like(t_k)
+        return t_k, gid, z, z
+    hit = jnp.isfinite(t_k)
+    tri = gid - sum(scene.static.counts[:5])
+    # misses get threshold +inf, so their recomputation stays finite and
+    # their (masked) gradient is zero, not NaN
+    t, u, v, _ = _mt(origins, directions, scene.tri_p1[tri],
+                     scene.tri_e1[tri], scene.tri_e2[tri],
+                     jnp.where(hit, 0.0, INF))
+    t = jnp.where(hit, t_k + (t - jax.lax.stop_gradient(t)), INF)
+    return t, gid, jnp.where(hit, u, 0.0), jnp.where(hit, v, 0.0)
 
 
-def _tri_free_nearest_scan(scene: T.Scene, origins, directions, start, count,
-                           t_cap=None):
-    """Nearest positive hit over the non-CSG triangle range, chunked scan
-    with per-chunk AABB culling.
+def _tri_free_nearest_scan(scene: T.Scene, origins, directions, t_cap=None):
+    """Nearest positive hit over the free triangles, chunked scan with
+    per-chunk AABB culling — the plain reference of the GPU kernel.
 
     Chunks are spatially coherent (builder Morton-orders free triangles),
-    so a whole chunk whose AABB no ray in the tile enters is skipped via
-    lax.cond — the BVH-equivalent for a wide SIMD machine: cull at chunk
-    granularity instead of per-ray tree traversal (SURVEY §7.6).
-    ``t_cap`` [R] seeds the running best-t (see _tri_free_nearest).
+    so a whole chunk whose AABB no ray in the batch enters is skipped via
+    lax.cond. ``t_cap`` [R] seeds the running best-t (see
+    _tri_free_nearest).
 
     Returns (t [R], gid [R], u [R], v [R]); misses have t=+inf.
     """
     r = origins.shape[0]
-    n_pad = -count % TRI_CHUNK
-    sl = slice(start, start + count)
-
-    def pad(x):
-        return jnp.pad(x[sl], ((0, n_pad), (0, 0)))
-
-    p1 = pad(scene.tri_p1).reshape(-1, TRI_CHUNK, 3)
-    e1 = pad(scene.tri_e1).reshape(-1, TRI_CHUNK, 3)
-    e2 = pad(scene.tri_e2).reshape(-1, TRI_CHUNK, 3)
-    # padding threshold +inf: padding rows (det==0) must reject
-    deps = jnp.pad(scene.tri_det_eps[sl], (0, n_pad),
-                   constant_values=INF).reshape(-1, TRI_CHUNK)
-    bb_min, bb_max = _free_chunk_bbs(scene, start, p1, e1, e2)  # [Ch,3]
+    p1, e1, e2, deps, bb_min, bb_max = _free_chunks(scene)
     n_chunks = p1.shape[0]
 
     inv_d = 1.0 / jnp.where(jnp.abs(directions) < 1e-12, 1e-12, directions)
@@ -665,9 +660,7 @@ def _tri_free_nearest_scan(scene: T.Scene, origins, directions, start, count,
     )
     if t_cap is not None:
         bt = jnp.where(bt < t_cap, bt, INF)
-    tri_off = sum(scene.static.counts[:5])
-    gid = tri_off + start + jnp.minimum(bg, count - 1)
-    return bt, gid, bu, bv
+    return bt, _free_gid(scene, bg), bu, bv
 
 
 def nearest_hit(scene: T.Scene, origins, directions):
@@ -689,7 +682,7 @@ def nearest_hit(scene: T.Scene, origins, directions):
     nt_free = st.counts[5] - st.n_csg_tris
     if nt_free > 0:
         t_m, g_m, u_m, v_m = _tri_free_nearest(
-            scene, origins, directions, st.n_csg_tris, nt_free, t_cap=t_s
+            scene, origins, directions, t_cap=t_s
         )
         better = t_m < t_s
         t_s = jnp.where(better, t_m, t_s)
@@ -705,7 +698,7 @@ def _shadow_static_ts(scene: T.Scene, over, direction):
     """Candidate ts of the quadric families for S shadow rays per
     receiver, with the receiver->object transform factored OUT of the
     sample axis: the origins einsum runs on [R, N] instead of [R*S, N]
-    (S-fold less MXU work and HBM traffic for area lights).
+    (S-fold less matmul work and memory traffic for area lights).
 
     over [R,3], direction [R,S,3] -> (ts [R,S,Cs], col_gid np.int32 [Cs]).
     """
@@ -763,7 +756,7 @@ def shadow_blocked(scene: T.Scene, over, pos, live=None):
     need only t and a per-column STATIC shadow flag), and factors the
     receiver transform out of the sample axis. ``live`` masks rows
     whose shadow result is discarded (missed/parked receivers): their
-    ray direction is re-parked to +z so the mesh kernels' AABB gates
+    ray direction is re-parked to +z so the mesh search's AABB gates
     reject them (a recomputed direction toward the light would
     otherwise point straight back into the scene).
 
@@ -828,10 +821,9 @@ def shadow_blocked(scene: T.Scene, over, pos, live=None):
         # at or beyond the light sample distance decides "not blocked"
         # exactly as a miss does — so the segment [0, min(t_s, dist))
         # is the only region that matters, and the cap feeds the mesh
-        # kernel's AABB/DMA gates. Dead rows (parked receivers, whose
-        # result is discarded) get cap 0: no supergroup is ever live
-        # for them and they read as instantly "found" to the any-hit
-        # early exit.
+        # search's AABB gates. Dead rows (parked receivers, whose result
+        # is discarded) get cap 0: no chunk is ever live for them and
+        # they read as done to the any-hit early exit.
         t_cap = jnp.minimum(t_s, dist)
         if live is not None:
             t_cap = jnp.where(live[:, None], t_cap, 0.0)
@@ -839,10 +831,10 @@ def shadow_blocked(scene: T.Scene, over, pos, live=None):
         # hit below the cap matters (any such hit flips the verdict to
         # blocked: it is nearer than the static decider and its flag is
         # True; t's exact value is never read past the comparisons
-        # below, which 0 satisfies identically). The kernel then stops
-        # streaming the moment every ray found any occluder.
+        # below, which any t in (0, cap) satisfies identically). The GPU
+        # kernel then stops once every ray of a block found an occluder.
         t_m, g_m, _, _ = _tri_free_nearest(
-            scene, flat_o, direction.reshape(-1, 3), st.n_csg_tris, nt_free,
+            scene, flat_o, direction.reshape(-1, 3),
             t_cap=t_cap.reshape(-1), any_hit=bool(st.mesh_all_shadow),
         )
         t_m = t_m.reshape(r, s)
@@ -932,9 +924,8 @@ def sorted_hits(scene: T.Scene, origins, directions, k: int = 12):
 def first_hit(ts, gid, u, v):
     """hit() = intersection with the smallest t > 0 (intersections.rs:94-96).
 
-    Works on UNSORTED candidate tables (a masked argmin — sorting the
-    candidate axis on TPU costs ~2000x the intersection math itself in
-    HBM traffic, so the hot path never sorts).
+    Works on UNSORTED candidate tables (a masked argmin: the hot path
+    never sorts the candidate axis).
 
     Returns (has_hit [R], t [R], gid [R], u [R], v [R], hit_slot [R]).
     """

@@ -28,7 +28,7 @@ def normal_at(scene: T.Scene, gid, world_point, u, v, tgid=None, inv=None,
     """shapes.rs:187-202: world_to_object -> local_normal_at -> world.
 
     Family dispatch is by static gid ranges; every family's formula is
-    evaluated and where-selected (no divergence on TPU). ``tgid``/``inv``/
+    evaluated and where-selected (no divergence). ``tgid``/``inv``/
     ``nmat``: precomputed compact rows and per-ray transform matrices,
     shared with the caller's material/pattern lookups (render.shade_level
     fetches them all in one one-hot matmul).
@@ -127,8 +127,7 @@ def phong(mat_rows, surface_color, light_intensity, light_pos, point, eyev, norm
     Fully elementwise over leading dims: area lights call this with
     [R, 1, ...] material/geometry rows against [R, S, 3] sample
     positions, so XLA fuses the broadcasts instead of materializing
-    [R*S, 10] copies of the material table (measured ~1.3x on the
-    soft_shadows frame)."""
+    [R*S, 10] copies of the material table."""
     diffuse_f = mat_rows[..., T.MAT_DIFFUSE : T.MAT_DIFFUSE + 1]
     specular_f = mat_rows[..., T.MAT_SPECULAR : T.MAT_SPECULAR + 1]
     shininess = mat_rows[..., T.MAT_SHININESS]
@@ -170,8 +169,8 @@ def refraction_indices_fast(scene: T.Scene, ts, gids, hit_slot):
 
     Same math as :func:`refraction_indices` but sibling columns of each
     object are known at compile time, so parity and latest-toggle checks
-    unroll to a handful of [R, C] ops — no [R, C, C] tensors. ~100x less
-    HBM traffic on TPU; the generic version remains as the oracle.
+    unroll to a handful of [R, C] ops — no [R, C, C] tensors, far less
+    memory traffic; the generic version remains as the oracle.
     """
     from raytracer_tpu.core.intersect import (
         candidate_meta, table_gather, transform_row,
@@ -222,11 +221,10 @@ def refraction_indices_fast(scene: T.Scene, ts, gids, hit_slot):
         (ts < t_h) | ((ts == t_h) & (idx[None, :] < hit_slot[:, None]))
     )                                                      # [R, C]
 
-    # per-column: parity of its object's toggles (one MXU one-hot matmul
+    # per-column: parity of its object's toggles (one one-hot matmul
     # — exact small-integer counts), and later-same-object toggle
-    # existence (one masked [R, C, C] pass). The r2 version unrolled
-    # these as ~C*4 tiny [R] ops per level, which XLA left unfused —
-    # ~2 ms/tile of pure op latency in the r3 device trace.
+    # existence (one masked [R, C, C] pass) instead of ~C*4 tiny [R]
+    # ops per level, which XLA would leave unfused.
     import numpy as np
 
     sib_m = np.zeros((c, c), bool)              # [k, j]: k sibling of j

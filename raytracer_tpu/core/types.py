@@ -5,7 +5,7 @@ This replaces the reference's enum-of-structs + global slotmap registries
 with flat, padded arrays — pure data, no registries, trivially shardable and
 differentiable.
 
-Design notes (TPU-first):
+Design notes:
 
 * Every primitive gets a global id ``gid``; per-gid tables hold material,
   pattern id, shadow flag and the composed world->object inverse transform.
@@ -87,8 +87,8 @@ class SceneStatic:
     # Schlick-blended case, world.rs:78-87). When False, every hit spawns
     # at most one live child (reflection XOR refraction), so the wavefront
     # integrator merges both spawn streams into one and the level width
-    # stays constant at R instead of doubling (2^L R) — exact, measured
-    # ~3x on the dragons scene (render.color_at).
+    # stays constant at R instead of doubling (2^L R) — exact
+    # (render.color_at).
     has_blend: bool = False
     # Any FREE (non-CSG) mesh triangle with transparency > 0: the n1/n2
     # container walk then also needs the nearest-BEHIND triangle entry
@@ -98,9 +98,9 @@ class SceneStatic:
     # None means seeded-random jitter.
     jitter: tuple | None = None
     # Every triangle SOURCE casts shadows: the mesh shadow query then
-    # skips its per-hit flag lookup entirely (gathers from per-triangle
-    # tables cost ~250 us per 32k rays on TPU; scenes using the
-    # shadow:false opt-out on meshes are rare).
+    # skips its per-hit flag lookup entirely (a gather from a
+    # per-triangle table; scenes using the shadow:false opt-out on meshes
+    # are rare).
     mesh_all_shadow: bool = True
     # All triangle sources share one refractive index -> that value, else
     # None. Lets the n1/n2 walk's dynamic mesh columns skip their per-ray
@@ -145,10 +145,9 @@ class Scene:
     # shadow are indexed like inv_tf: non-triangle gids first, then ONE row
     # per triangle SOURCE (gid -> row via intersect.transform_row). Every
     # triangle of a mesh shares its source's attributes, so per-gid
-    # [G~1M] tables bought nothing except turning each attribute lookup
-    # into a million-row gather custom-call (~250 us per 32k rays,
-    # several per bounce level in the r3 device trace); compactly the
-    # only big gather left is the shared tri_tf_id row map.
+    # [G~1M] tables would buy nothing except turning each attribute
+    # lookup into a million-row gather; compactly the only big gather
+    # left is the shared tri_tf_id row map.
     mat: Any            # f32 [M, MAT_NCOLS] unique material rows
     mat_id: Any         # i32 [Gn + n_tf] material row per compact row
     pattern_id: Any     # i32 [Gn + n_tf]   (-1 = none)
@@ -156,8 +155,8 @@ class Scene:
     # Transform tables cover the NON-TRIANGLE gids followed by one row per
     # triangle SOURCE (an individually-added triangle, or a whole mesh
     # block — every triangle of a mesh shares its block's transform).
-    # Storing a row per triangle made these tables ~100 MB on a
-    # 1M-triangle scene and turned the per-hit row gather into a
+    # A row per triangle would make these tables ~100 MB on a
+    # 1M-triangle scene and turn the per-hit row gather into a
     # million-row gather; the compact table gathers cheaply. Triangle gid
     # -> row via ``Gn + tri_tf_id[gid - Gn]`` (intersect.transform_row).
     # Triangle INTERSECTION never reads these (vertices are
@@ -176,9 +175,8 @@ class Scene:
     tri_e2: Any         # f32 [Nt, 3]
     # One row per triangle with everything the shading pass needs:
     # [n1(3) | n2(3) | n3(3) | flat_n(3) | smooth flag]. Packed so a hit
-    # costs ONE per-triangle gather — five separate [Nt] gathers were
-    # ~100 ms/frame on a 1M-triangle scene (gather cost is per row
-    # visited, not per byte).
+    # costs ONE per-triangle gather instead of five separate [Nt] ones
+    # (gather cost is per row visited, not per byte).
     tri_shade: Any      # f32 [Nt, 13] world-space normals + smooth flag
     tri_tf_id: Any      # i32 [max(Nt,1)] transform row (see inv_tf) per tri
     # Per-triangle Moller-Trumbore det threshold: EPSILON * |det(A)| of
@@ -211,15 +209,13 @@ class Scene:
     uv_image: Any       # i32 [U]
     images: Any         # f32 [I, Hmax, Wmax, 3]
     image_wh: Any       # i32 [I, 2]  (width, height) of each image
-    # --- precomputed mesh acceleration (derived; see ops/mesh_pallas) -----
-    # Packed free-triangle planes + chunk/supergroup AABBs, built ONCE at
-    # scene compile. Recomputing these inside the jitted trace cost ~30 ms
-    # of a 40 ms dragons tile dispatch (1M-triangle transpose + reductions
-    # re-materialized per dispatch); as pytree leaves they live in HBM and
-    # every dispatch just reads them. None when the scene has no big mesh.
-    mesh_planes: Any = None    # f32 [n_super, SG, N_PLANES*CHUNK]
-    mesh_bb_chunk: Any = None  # f32 [6, n_chunks]
-    mesh_bb_super: Any = None  # f32 [6, n_super]
+    # --- free-mesh search tables (derived; built once by builder.finish) --
+    # The GPU kernel's structure-of-arrays copy of the free triangles
+    # (ops/mesh_kernel.pack_planes) and the AABB of every TRI_CHUNK-triangle
+    # chunk, which the kernel and the scan both read. As pytree leaves they
+    # stay on device and no query rebuilds them. None without a free mesh.
+    mesh_planes: Any = None    # f32 [10, N_pad] p1, e1, e2 xyz + det_eps
+    mesh_bb_chunk: Any = None  # f32 [6, N_pad / TRI_CHUNK] min xyz, max xyz
     # --- static -----------------------------------------------------------
     static: SceneStatic = dataclasses.field(
         metadata=dict(static=True), default=None

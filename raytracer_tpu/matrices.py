@@ -58,4 +58,4 @@ def inverse(m):
 
 def mat_mul_tuple(m, t):
     """Matrix x 4-tuple (matrices.rs:200-236)."""
-    return jnp.asarray(m) @ jnp.asarray(t)
+    return jnp.matmul(jnp.asarray(m), jnp.asarray(t), precision="highest")

@@ -1,1 +1,1 @@
-"""Hand-written TPU kernels (Pallas) for the hot compute paths."""
+"""Hand-written GPU kernels (Pallas) for the hot compute paths."""

@@ -1,12 +1,11 @@
-"""Multi-chip execution: shard the pixel/ray grid over a device mesh.
+"""Multi-device execution: shard the pixel/ray grid over a device mesh.
 
 The reference's only parallelism is rayon work-stealing over pixels on one
-shared-memory machine (/root/reference/src/camera.rs:66-84). The TPU-native
-equivalent: rays are embarrassingly parallel, so the ray axis is sharded
-over a 1-D ``jax.sharding.Mesh`` while the scene SoA tables are replicated;
-XLA inserts no collectives for the forward render (pure data parallel) and
-one ``psum`` (all-reduce over ICI) for scene-parameter gradients in the
-training step.
+shared-memory machine (camera.rs:66-84). Here rays are embarrassingly
+parallel, so the ray axis is sharded over a 1-D ``jax.sharding.Mesh`` while
+the scene SoA tables are replicated: the forward render needs no
+collectives (pure data parallel) and the training step one ``pmean``
+(all-reduce) of the scene-parameter gradients.
 """
 
 from raytracer_tpu.parallel.mesh import (

@@ -5,12 +5,12 @@ Sharding layout (scaling-book style, pure DP over rays):
   * rays: ``NamedSharding(mesh, P("rays"))`` on axis 0 — each device owns a
     contiguous slab of the pixel grid;
   * scene: fully replicated (``P()``) — scene tables are small relative to
-    HBM; meshes up to millions of triangles still fit replicated, and
+    device memory; meshes up to millions of triangles still fit replicated, and
     replication makes the forward pass collective-free.
 
-The render itself is the same jitted program as single-chip
-(:func:`raytracer_tpu.core.render.color_at`); only the shardings differ.
-XLA partitions everything elementwise along the ray axis.
+The render itself is the same program as on one device
+(:func:`raytracer_tpu.core.render.color_at`), run per device under
+``shard_map`` on that device's slab of rays.
 """
 
 from __future__ import annotations
@@ -29,7 +29,7 @@ HOST_AXIS = "hosts"
 
 def init_distributed(coordinator_address=None, num_processes=None,
                      process_id=None, local_device_ids=None):
-    """Initialize the multi-host JAX runtime (SURVEY §7.8: host x chip).
+    """Initialize the multi-host JAX runtime (SURVEY §7.8: host x device).
 
     Call once per process before any device work. With no arguments the
     coordinator env vars (JAX_COORDINATOR_ADDRESS / COORDINATOR_ADDRESS)
@@ -61,18 +61,17 @@ def make_mesh(devices=None, axis: str = RAY_AXIS) -> Mesh:
     return Mesh(np.asarray(devices), (axis,))
 
 
-def make_host_mesh(axis_host: str = HOST_AXIS, axis_chip: str = RAY_AXIS) -> Mesh:
-    """2-D (hosts, chips-per-host) mesh over ALL global devices.
+def make_host_mesh(axis_host: str = HOST_AXIS, axis_dev: str = RAY_AXIS) -> Mesh:
+    """2-D (hosts, devices-per-host) mesh over ALL global devices.
 
     Rays shard over both axes (pure DP needs no cross-host collectives in
-    the forward pass); training grad psums reduce over chips first (ICI)
-    then hosts (DCN) — exactly the scaling-book DP layout. jax.devices()
-    orders devices process-major, so rows of the mesh are hosts and the
-    chip axis rides ICI.
+    the forward pass); training grads are averaged over both axes.
+    jax.devices() orders devices process-major, so rows of the mesh are
+    hosts.
     """
     devs = np.asarray(jax.devices())
     n_proc = jax.process_count()
-    return Mesh(devs.reshape(n_proc, -1), (axis_host, axis_chip))
+    return Mesh(devs.reshape(n_proc, -1), (axis_host, axis_dev))
 
 
 def replicate_scene(scene: T.Scene, mesh: Mesh) -> T.Scene:
@@ -100,18 +99,18 @@ def render_sharded(scene: T.Scene, camera, mesh: Mesh | None = None, *,
                    key=None, tile_rays=None, multihost=None):
     """Full-frame render with the ray axis sharded over ``mesh``.
 
-    Tiles like the single-chip renderer (the depth-4 spawn tree of a
-    whole frame does not fit HBM), with each tile's rays split across
-    every mesh axis (works for the 1-D chip mesh and the 2-D
-    :func:`make_host_mesh` host x chip mesh alike); tiles keep the
-    screen-block ordering so every device gets a spatially coherent
-    sub-block. Returns a float32 numpy image.
+    Tiles like the single-device renderer (the depth-4 spawn tree of a
+    whole frame does not fit device memory), with each tile's rays split
+    across every mesh axis (works for the 1-D device mesh and the 2-D
+    :func:`make_host_mesh` host x device mesh alike); tiles keep the
+    screen-block ordering so every device gets spatially coherent
+    pixel squares. Returns a float32 numpy image.
 
     ``multihost`` (auto-detected): on a multi-process runtime each host
     materializes only its addressable shard of every tile
     (jax.make_array_from_callback — the pixel-id tiles are computed
     identically on every host, so no cross-host transfer happens), and
-    the final image is assembled with a process allgather over DCN.
+    the final image is assembled with a process allgather.
 
     Rays are generated ON DEVICE from the inverse camera matrix and
     sharded pixel-id tiles (core.render.tile_rays) — the host ships
@@ -134,9 +133,7 @@ def render_sharded(scene: T.Scene, camera, mesh: Mesh | None = None, *,
 
     n = camera.vsize * camera.hsize
     tile = min(tile_rays, n)
-    order = _block_order(
-        camera.vsize, camera.hsize, max(int((tile // n_dev) ** 0.5), 1)
-    )
+    order = _block_order(camera.vsize, camera.hsize)
     n_pad = -n % tile
     padded = (np.pad(order, (0, n_pad)) if n_pad else order).astype(np.int32)
 
@@ -156,12 +153,18 @@ def render_sharded(scene: T.Scene, camera, mesh: Mesh | None = None, *,
             )
         return jax.device_put(jnp.asarray(x), ray_sh)
 
-    @jax.jit
-    def run(scene, inv, consts, idx, key):
-        idx = jax.lax.with_sharding_constraint(idx, ray_sh)
+    # The mesh kernel is a Pallas call, which GSPMD cannot partition:
+    # shard_map runs the whole tile program per device on its own rays
+    # (check_vma=False: Pallas results carry no varying-axis types).
+    def local(scene, inv, consts, idx, key):
         o, d = _tile_rays(inv, consts, idx, hsize)
-        img = color_at(scene, o, d, key, limit)
-        return jax.lax.with_sharding_constraint(img, ray_sh)
+        return color_at(scene, o, d, key, limit)
+
+    run = jax.jit(jax.shard_map(
+        local, mesh=mesh,
+        in_specs=(P(), P(), P(), P(mesh.axis_names), P()),
+        out_specs=P(mesh.axis_names), check_vma=False,
+    ))
 
     parts = []
     for i in range(0, n + n_pad, tile):

@@ -3,9 +3,9 @@
 New capability vs the reference (which is forward-only): the whole render is
 one differentiable JAX program, so scene parameters (material tables, light
 intensities, pattern colors, transforms...) can be optimized against a
-target image. Under a sharded ray axis XLA turns the parameter gradients
-into a single ``psum`` (all-reduce) over ICI — the canonical data-parallel
-training layout.
+target image. Under a sharded ray axis each device takes the gradient of
+its own rays and one ``pmean`` (all-reduce) averages them — the canonical
+data-parallel training layout.
 """
 
 from __future__ import annotations
@@ -14,7 +14,7 @@ import dataclasses
 
 import jax
 import jax.numpy as jnp
-from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
+from jax.sharding import Mesh, PartitionSpec as P
 
 from raytracer_tpu.core import types as T
 from raytracer_tpu.core.render import color_at
@@ -35,7 +35,7 @@ DERIVED_GEOMETRY = frozenset({
     "pat_inv",
     "alight_corner", "alight_uvec", "alight_vvec", "alight_pos",
     # packed copies of the triangle tables (builder.finish)
-    "mesh_planes", "mesh_bb_chunk", "mesh_bb_super",
+    "mesh_planes", "mesh_bb_chunk",
 })
 
 
@@ -70,8 +70,8 @@ def render_loss(params, recombine, origins, directions, target, key=None,
 
     ``remat=True`` (default) recomputes each bounce level in the backward
     pass instead of storing its residuals (see ``color_at``): a blend
-    scene's deepest level is 16x the ray batch wide, and without remat a
-    131k-ray gradient needs 23.4 GB of HBM — 1.5x the chip.
+    scene's deepest level is 16x the ray batch wide, and without remat
+    its residuals dominate the gradient's memory.
     """
     scene = recombine(params)
     img = color_at(scene, origins, directions, key, remat=remat)
@@ -79,16 +79,12 @@ def render_loss(params, recombine, origins, directions, target, key=None,
 
 
 def _grad_microbatched(params, recombine, origins, directions, target, key,
-                       n_micro, micro_sharding=None, remat=True):
+                       n_micro, remat=True):
     """value_and_grad of :func:`render_loss`, accumulated over ``n_micro``
     sequential microbatches of the ray axis (a lax.scan), so grad memory
     is bounded by one microbatch regardless of total batch size. Exact:
     MSE over equal-size chunks averages to the full-batch MSE, and grads
     are linear in the loss.
-
-    ``micro_sharding``: sharding for the reshaped [n_micro, m, 3] stack —
-    under a device mesh the *ray* axis (axis 1) must stay sharded while
-    the scan axis is replicated, which reshape alone won't propagate.
     """
     n = origins.shape[0]
     if n % n_micro:
@@ -97,11 +93,6 @@ def _grad_microbatched(params, recombine, origins, directions, target, key,
     o = origins.reshape(n_micro, m, 3)
     d = directions.reshape(n_micro, m, 3)
     t = target.reshape(n_micro, m, 3)
-    if micro_sharding is not None:
-        o, d, t = (
-            jax.lax.with_sharding_constraint(x, micro_sharding)
-            for x in (o, d, t)
-        )
     keys = (
         jax.random.split(key, n_micro)
         if key is not None
@@ -131,16 +122,13 @@ def render_loss_and_grad(params, recombine, origins, directions, target,
     """(loss, grads) of :func:`render_loss` w.r.t. ``params`` — the public
     entry for custom optimization loops. ``n_micro`` accumulates gradients
     over that many sequential ray microbatches (exact; bounds memory by
-    one microbatch — how a 1280x720 frame's gradient fits on one chip).
+    one microbatch — how a 1280x720 frame's gradient fits on one device).
 
-    ``remat``: per-bounce-level rematerialization (see render_loss).
-    Memory-vs-speed knob, measured on the 131k-ray flagship batch on one
-    v5e chip: remat full-batch 368k rays/s; remat + n_micro=2 600k;
-    remat OFF + n_micro=2 663k; remat OFF + n_micro=4 675k (the 16R-wide
-    deep levels at full batch thrash HBM, and once microbatching narrows
-    them, storing residuals beats recomputing the trace). Prefer
-    ``remat=False`` with enough microbatches to fit HBM; keep the default
-    for single-shot full-batch gradients."""
+    ``remat``: per-bounce-level rematerialization (see render_loss), a
+    memory-vs-speed knob: once microbatching narrows the 16R-wide deep
+    levels, storing residuals can beat recomputing the trace. Which
+    setting is faster on the GPU is still to be measured; keep the
+    default for single-shot full-batch gradients."""
     if n_micro is not None and n_micro > 1:
         return _grad_microbatched(
             params, recombine, origins, directions, target, key, n_micro,
@@ -159,8 +147,8 @@ def train_step(scene: T.Scene, origins, directions, target, *, lr=1e-2,
     with gradient accumulation (exact, bounds grad memory by one
     microbatch). None = single full-batch gradient (per-level remat still
     bounds it by the widest bounce level — see :func:`render_loss`).
-    ``remat``: see :func:`render_loss_and_grad` for the measured
-    speed/memory tradeoff.
+    ``remat``: see :func:`render_loss_and_grad` for the speed/memory
+    tradeoff.
     """
     params, recombine = partition_scene(scene)
     loss, grads = render_loss_and_grad(
@@ -215,44 +203,38 @@ def make_sharded_train_step(mesh: Mesh, *, lr=1e-2, n_micro=None,
     """A jitted train step with rays/targets sharded and params replicated.
 
     The returned fn has signature ``(scene, origins, directions, target,
-    key) -> (loss, scene')``. Gradients of the replicated scene parameters
-    against the sharded ray batch become one all-reduce, inserted by XLA.
-    On a 2-D host x chip mesh (make_host_mesh) rays shard over both axes
-    and the grad reduction happens chip-first (ICI) then host (DCN).
+    key) -> (loss, scene')``. Each device takes the loss and gradient of
+    its own rays under ``shard_map`` (the mesh kernel is a Pallas call,
+    which GSPMD cannot partition), and one ``pmean`` over every mesh axis
+    averages both — exact for equal shard sizes, which shard_rays
+    guarantees. Works for the 1-D device mesh and the 2-D
+    :func:`make_host_mesh` host x device mesh alike.
 
-    ``n_micro``: sequential gradient-accumulation microbatches per chip
-    (the ray axis is split *after* sharding, so each chip scans its own
-    shard); bounds per-chip grad memory like :func:`train_step`.
-    ``remat``: see :func:`render_loss_and_grad` — per-chip, remat=False
-    with enough microbatches to fit HBM is the measured-fastest point.
+    ``n_micro``: sequential gradient-accumulation microbatches per device
+    (each device scans its own shard); bounds per-device grad memory like
+    :func:`train_step`. ``remat``: see :func:`render_loss_and_grad`.
     """
-    ray_sh = NamedSharding(mesh, P(mesh.axis_names))
-    rep = NamedSharding(mesh, P())
+    axes = mesh.axis_names
+    rays = P(axes)
 
-    @jax.jit
-    def step(scene, origins, directions, target, key):
-        origins = jax.lax.with_sharding_constraint(origins, ray_sh)
-        directions = jax.lax.with_sharding_constraint(directions, ray_sh)
-        target = jax.lax.with_sharding_constraint(target, ray_sh)
+    def local_step(scene, origins, directions, target, key):
         params, recombine = partition_scene(scene)
-        params = jax.tree.map(
-            lambda p: jax.lax.with_sharding_constraint(p, rep), params
+        loss, grads = render_loss_and_grad(
+            params, recombine, origins, directions, target, key,
+            n_micro=n_micro, remat=remat,
         )
-        if n_micro is not None and n_micro > 1:
-            micro_sh = NamedSharding(mesh, P(None, mesh.axis_names))
-            loss, grads = _grad_microbatched(
-                params, recombine, origins, directions, target, key, n_micro,
-                micro_sharding=micro_sh, remat=remat,
-            )
-        else:
-            loss, grads = jax.value_and_grad(render_loss)(
-                params, recombine, origins, directions, target, key,
-                remat=remat,
-            )
+        loss, grads = jax.lax.pmean((loss, grads), axes)
         new_params = jax.tree.map(lambda p, g: p - lr * g, params, grads)
         return loss, recombine(new_params)
 
-    return step
+    # check_vma=False: Pallas results carry no varying-axis types, and
+    # with the checks on the per-level remat program crashed XLA:CPU's
+    # runtime on four or more devices
+    return jax.jit(jax.shard_map(
+        local_step, mesh=mesh,
+        in_specs=(P(), rays, rays, rays, P()),
+        out_specs=(P(), P()), check_vma=False,
+    ))
 
 
 def with_prim_transform(scene: T.Scene, gid: int, matrix):

@@ -13,12 +13,11 @@ csg.rs:26-123 with parity prefix-sums.
 
 from __future__ import annotations
 
-import os
-
 import jax
 import numpy as np
 
 from raytracer_tpu.core import types as T
+from raytracer_tpu.ops.mesh_kernel import pack_planes
 from raytracer_tpu.scene import specs as S
 
 _DEF_UV = -1
@@ -233,7 +232,7 @@ class _Builder:
 
         World transforms and normal-matrix products run per SOURCE (one
         GEMM per mesh block) — materializing a per-triangle [Nt,4,4]
-        matrix table and einsum-ing it cost ~60 s of a 1M-triangle scene
+        matrix table and einsum-ing it would dominate a 1M-triangle scene
         build. Returns a dict of arrays: w [Nt,3,3] world corners,
         n_world [Nt,3,3] world-space (unnormalized) vertex normals,
         flat [Nt,3] unit world flat normals, smooth [Nt], mat
@@ -552,28 +551,14 @@ class _Builder:
         def dev(x):
             return jnp.asarray(x)
 
-        # Precompute the packed mesh acceleration structure once (planes in
-        # the Pallas kernel's DMA layout + chunk/supergroup AABBs). Doing
-        # this inside the jitted trace re-materialized a 1M-triangle
-        # transpose + reductions on every dispatch (~3/4 of a dragons tile).
-        mesh_planes = mesh_bb_chunk = mesh_bb_super = None
-        nt_free = nt - n_csg_tris
-        if nt_free >= 1024:
-            from raytracer_tpu.ops import mesh_pallas as MP
-
+        # The free mesh's search tables, built once here: the GPU kernel's
+        # SoA planes and the chunk AABBs that both the kernel and the scan
+        # read (intersect.TRI_CHUNK triangles per box).
+        mesh_planes = mesh_bb_chunk = None
+        if nt > n_csg_tris:
             sl = slice(n_csg_tris, nt)
-            dtype = None
-            if os.environ.get("RAYTRACER_MESH_BF16") == "1":
-                # half-DMA experiment: see mesh_pallas.py — NOT
-                # bit-parity with the f32 store (geometry rounds to 8
-                # mantissa bits); measured in benchmarks/ablate_bf16.py
-                import ml_dtypes
-
-                dtype = ml_dtypes.bfloat16
-            mesh_planes, (mesh_bb_chunk, mesh_bb_super) = MP.pack_tri_planes_np(
-                tri_p1[sl], tri_e1[sl], tri_e2[sl], tri_det_eps[sl],
-                dtype=dtype,
-            )
+            mesh_planes, mesh_bb_chunk = pack_planes(
+                tri_p1[sl], tri_e1[sl], tri_e2[sl], tri_det_eps[sl])
 
         return jax.tree.map(dev, T.Scene(
             mat=mat_table, mat_id=mat_id,
@@ -593,6 +578,5 @@ class _Builder:
             uv_kind=uv_kind, uv_wh=uv_wh, uv_colors=uv_colors,
             uv_image=uv_image, images=images, image_wh=image_wh,
             mesh_planes=mesh_planes, mesh_bb_chunk=mesh_bb_chunk,
-            mesh_bb_super=mesh_bb_super,
             static=static,
         ))

@@ -1,7 +1,8 @@
 """YAML scene description → (Camera, Scene), byte-compatible with the
 reference's format.
 
-Reproduces /root/reference/src/scene.rs semantics:
+Reproduces the reference's scene.rs semantics (the YAML subset it uses is
+read by scene/yaml_lite.py):
 
 * instruction list of ``add`` (camera / point-light / area-light / shapes /
   group / csg) and ``define`` entries (scene.rs:229-272,304-382,910-919);
@@ -32,7 +33,6 @@ import operator
 from pathlib import Path
 
 import numpy as np
-import yaml
 
 from raytracer_tpu import transforms as tf
 from raytracer_tpu.camera import Camera
@@ -40,6 +40,7 @@ from raytracer_tpu.canvas import from_ppm_bytes
 from raytracer_tpu.obj import parse_obj
 from raytracer_tpu.scene import specs as S
 from raytracer_tpu.scene.builder import build_scene
+from raytracer_tpu.scene.yaml_lite import safe_load
 
 _MATH_NAMES = {
     "PI": math.pi, "pi": math.pi,
@@ -313,7 +314,7 @@ def parse_scene(
     """YAML text → (Camera, device Scene). ``jitter`` enables the
     deterministic area-light sequence (the reference's test hook injects
     [0.5], scene.rs:145-147)."""
-    instructions = yaml.safe_load(text)
+    instructions = safe_load(text)
     if not isinstance(instructions, list):
         raise ValueError("Scene YAML must be a list of instructions")
 

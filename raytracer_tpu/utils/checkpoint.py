@@ -87,7 +87,7 @@ def render_resumable(scene, camera, checkpoint_path, *, key=None,
         done[:] = False
         meta_p.write_text(json.dumps(meta))
 
-    order = _block_order(camera.vsize, camera.hsize, max(int(tile ** 0.5), 1))
+    order = _block_order(camera.vsize, camera.hsize)
     n_pad = -n % tile
     padded = np.pad(order, (0, n_pad)) if n_pad else order
     inv, consts = camera_consts(camera)

@@ -38,7 +38,7 @@ def test_cli_render_to_file(tmp_path):
 
 def test_cli_default_tile_is_adaptive(tmp_path, monkeypatch):
     """The CLI must not pin tile_rays: mesh-heavy scenes rely on render()'s
-    adaptive small screen-local tiles (the measured 7x chunk-culling win)."""
+    adaptive small screen-local tiles."""
     from raytracer_tpu.core.render import pick_tile_rays
     from raytracer_tpu.core.types import SceneStatic
 
@@ -59,7 +59,7 @@ def test_cli_default_tile_is_adaptive(tmp_path, monkeypatch):
 
     # and the adaptive choice picks smaller tiles for mesh-heavy scenes
     # (assert the contract — ordering + power-of-two — not the swept
-    # constants, which each round's TPU re-sweep may move)
+    # constants, which a re-sweep may move)
     mesh_static = SceneStatic(counts=(0, 0, 0, 0, 0, 30000))
     small_static = SceneStatic(counts=(2, 1, 0, 0, 0, 0))
     mesh_tile = pick_tile_rays(mesh_static)
@@ -78,28 +78,3 @@ def test_cli_dithering(tmp_path):
     assert rc == 0
     img = from_ppm_bytes(out_p.read_bytes())
     assert set(np.unique(img)) <= {0.0, 1.0}
-
-
-def test_max_mesh_tile_divides_by_area_samples():
-    """Area-light scenes dispatch the mesh kernel at tile*S rays, so the
-    SMEM clamp must divide by the widest light's sample count (advisor
-    r4: a 10x10 light over a big mesh compiled ~6.6 MB of SMEM tables
-    at the plain clamp)."""
-    from raytracer_tpu.core.render import (
-        pick_tile_rays, _max_mesh_tile, _max_samples,
-    )
-    from raytracer_tpu.core.types import SceneStatic
-    from raytracer_tpu.ops.mesh_pallas import RT
-
-    big_mesh = 1_000_000
-    plain = _max_mesh_tile(big_mesh, 1)
-    clamped = _max_mesh_tile(big_mesh, 100)
-    assert clamped <= plain // 64  # power-of-two rounding of /100
-    assert clamped >= RT
-    # and the product tile*S stays within the plain per-dispatch budget
-    assert clamped * 100 <= plain * 2  # pow2 rounding slack
-
-    st = SceneStatic(counts=(0, 0, 0, 0, 0, big_mesh),
-                     area_steps=((10, 10),))
-    assert _max_samples(st) == 100
-    assert pick_tile_rays(st) * 100 <= plain * 2

@@ -180,7 +180,7 @@ def test_sharded_train_step_matches_single_device():
         np.testing.assert_allclose(got[k], ref[k], rtol=1e-5, atol=1e-7,
                                    err_msg=k)
 
-    # per-chip gradient-accumulation microbatches: same update again
+    # per-device gradient-accumulation microbatches: same update again
     step_mb = make_sharded_train_step(mesh, lr=1e-2, n_micro=2)
     loss_mb, scene2_mb = step_mb(scene_r, so, sd, target, key)
     np.testing.assert_allclose(float(loss_mb), float(loss_1dev), rtol=1e-5)
@@ -189,7 +189,7 @@ def test_sharded_train_step_matches_single_device():
         np.testing.assert_allclose(got_mb[k], ref[k], rtol=1e-5, atol=1e-7,
                                    err_msg=k)
 
-    # remat off (the measured-fastest per-chip config): same update again
+    # remat off (the bench config): same update again
     step_nr = make_sharded_train_step(mesh, lr=1e-2, n_micro=2, remat=False)
     loss_nr, scene2_nr = step_nr(scene_r, so, sd, target, key)
     np.testing.assert_allclose(float(loss_nr), float(loss_1dev), rtol=1e-5)
@@ -244,7 +244,7 @@ def test_microbatch_matches_full_batch():
         np.testing.assert_allclose(got[k], ref[k], rtol=1e-4, atol=1e-7,
                                    err_msg=k)
 
-    # remat=False microbatching (the bench's fastest measured config)
+    # remat=False microbatching (the bench's config)
     # must produce the same update too
     loss_c, sc_c = jax.jit(
         lambda s, o, d, t: train_step(
@@ -258,7 +258,7 @@ def test_microbatch_matches_full_batch():
 
 
 def test_host_mesh_and_multihost_render_path():
-    """make_host_mesh shapes (processes, chips); the multihost render path
+    """make_host_mesh shapes (processes, devices); the multihost render path
     (per-host shard materialization + process allgather) must match the
     single-device render even on one process."""
     from raytracer_tpu.parallel.mesh import (
@@ -364,10 +364,10 @@ def test_pose_gradient_consistency():
 def test_train_grad_memory_envelope():
     """Compile (AOT, no execution) the full bench train step — flagship
     blend scene, 131,072 rays, depth 4 — and assert the compiled temp
-    memory stays far under a TPU chip's HBM. Round 3 shipped a 23.4 GB
-    grad program that OOM'd the 15.75 GB chip; per-level remat holds the
-    CPU-backend number at ~4.6 GB, so 12 GB catches any regression of
-    that class while tolerating backend layout differences."""
+    memory stays bounded. Without per-level remat the grad program grows
+    with the spawn tree's width; remat holds the CPU-backend number at
+    ~4.6 GB, so 12 GB catches any regression of that class while
+    tolerating backend layout differences."""
     import os
     import subprocess
     import sys

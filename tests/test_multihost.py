@@ -2,7 +2,7 @@
 
 Launches TWO OS processes (4 virtual CPU devices each) that form one
 jax.distributed runtime over a localhost coordinator — the same wiring a
-TPU pod uses (SURVEY §7.8: host x chip) — and renders through
+multi-host cluster uses (SURVEY §7.8) — and renders through
 render_sharded's multihost branch: per-host addressable shards, gloo
 collectives, final image via process allgather. Both hosts must produce
 the same image, and it must match the single-process renderer.
@@ -55,8 +55,8 @@ assert mesh.devices.shape == (nproc, 4)
 img = render_sharded(scene, cam, mesh)
 np.save(os.path.join(out_dir, "img_%d.npy" % pid), img)
 
-# one distributed training step: rays sharded over (hosts, chips),
-# scene replicated, grad psum over both mesh axes (ICI then DCN)
+# one distributed training step: rays sharded over (hosts, devices),
+# scene replicated, grads averaged over both mesh axes
 import jax.numpy as jnp
 from raytracer_tpu.camera import ray_grid
 from raytracer_tpu.parallel.mesh import replicate_scene, shard_rays

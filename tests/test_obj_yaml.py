@@ -2,6 +2,7 @@
 tests and src/scene.rs semantics)."""
 
 import math
+from pathlib import Path
 
 import numpy as np
 
@@ -271,13 +272,21 @@ def test_astronaut_scene_renders():
     assert img.max() > 0.05  # the model is lit, not a black frame
 
 
-def test_obj_group_scale_det_eps():
+def test_obj_group_scale_det_eps(tmp_path):
     """A scaled OBJ group instance gets the object-space epsilon
     (EPSILON * |det A|, types.Scene.tri_det_eps) through the full
     YAML -> OBJ -> scene path, so heavily scaled-down meshes still
-    render (r5 regression: they were entirely invisible)."""
+    render (r5 regression: they were entirely invisible). The mesh is
+    the seeded teapot stand-in (benchmarks/gen_mesh.py), cut down."""
+    import sys
     import numpy as np
     from raytracer_tpu.constants import EPSILON
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    from benchmarks.gen_mesh import obj_text
+
+    obj_p = tmp_path / "teapot_low.obj"
+    obj_p.write_text(obj_text(seed=3, n_lon=16, n_lat=9))
 
     s = 0.01
     yaml_src = f"""
@@ -298,7 +307,7 @@ def test_obj_group_scale_det_eps():
 """
     cam, scene = parse_scene(
         yaml_src,
-        obj_files=["/root/reference/samples/obj/teapot_low.obj"],
+        obj_files=[str(obj_p)],
     )
     nt = int(scene.static.counts[5])
     assert nt > 100
